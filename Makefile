@@ -1,4 +1,4 @@
-# tpu-flagstats build/test/bench orchestration
+# flagstats build/test/bench orchestration
 # (reference counterpart: the root Makefile building bench/utility/
 #  generate/inmemory/instrumented_benchmark)
 
@@ -15,7 +15,7 @@ DEFLATE := $(shell printf '\043include <libdeflate.h>\nint main(){return 0;}\n' 
   | g++ -x c++ - -ldeflate -o /dev/null 2>/dev/null && echo -ldeflate \
   || echo -DLFS_NO_LIBDEFLATE)
 
-.PHONY: all native test test-tpu bench inmemory clean
+.PHONY: all native test test-gpu smoke bench inmemory clean
 
 all: native
 
@@ -28,8 +28,14 @@ native:
 test:
 	$(PY) -m pytest tests/ -q
 
-test-tpu:
-	RUN_TPU_TESTS=1 $(PY) -m pytest tests/test_pallas_tpu.py -q
+# the gpu-marked tests, on a machine with an NVIDIA GPU
+test-gpu:
+	$(PY) -m pytest -m gpu tests/ -q
+
+# the whole system once on one GPU (python chip_smoke.py --four-cards
+# for the multi-card paths on four)
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py
@@ -49,7 +55,7 @@ tsan:
 	  libflagstats_tpu/io/native/tests/tsan_decode_test.cpp \
 	  libflagstats_tpu/io/native/flagstats_io.cpp \
 	  libflagstats_tpu/io/native/flagstats_host.cpp \
-	  -o build/tsan_decode_test -lzstd -pthread
+	  -o build/tsan_decode_test -ldl -pthread
 	./build/tsan_decode_test
 	g++ -O1 -g -fsanitize=thread -std=c++17 -march=native \
 	  libflagstats_tpu/io/native/tests/tsan_walker_test.cpp \
@@ -68,7 +74,7 @@ asan:
 	  libflagstats_tpu/io/native/tests/asan_fuzz_test.cpp \
 	  libflagstats_tpu/io/native/flagstats_io.cpp \
 	  libflagstats_tpu/io/native/flagstats_host.cpp \
-	  -o build/asan_fuzz_test -lzstd -pthread
+	  -o build/asan_fuzz_test -ldl -pthread
 	./build/asan_fuzz_test
 	g++ -O1 -g -fsanitize=address,undefined,pointer-overflow -std=c++17 \
 	  -march=native \
@@ -115,5 +121,5 @@ asan:
 	  libflagstats_tpu/io/native/cram_reader.cpp \
 	  libflagstats_tpu/io/native/flagstats_io.cpp \
 	  libflagstats_tpu/io/native/flagstats_host.cpp \
-	  -o build/rans_fuzz_test -lzstd -lz $(DEFLATE) -pthread
+	  -o build/rans_fuzz_test -lz -ldl $(DEFLATE) -pthread
 	./build/rans_fuzz_test

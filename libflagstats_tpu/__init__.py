@@ -1,10 +1,10 @@
-"""libflagstats_tpu — a TPU-native samtools-flagstat engine.
+"""libflagstats_tpu — a samtools-flagstat engine in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 mklarqvist/libflagstats: positional population counts and the full
 `samtools flagstat` summary over columns of 16-bit SAM FLAG words, at
-memory-bandwidth speed-of-light on TPU, scaling data-parallel over
-device meshes.
+memory-bandwidth speed-of-light on NVIDIA GPUs (a bit-sliced Pallas
+kernel), scaling data-parallel over device meshes.
 
 Public API:
   flagstats(values)        pyflagstats-compatible dict (python/libflagstats.pyx:8-37)

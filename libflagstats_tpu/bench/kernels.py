@@ -1,6 +1,6 @@
 """Per-kernel throughput table, dispatch-latency-free.
 
-The TPU analogue of the reference's per-variant cycles/word table
+The device analogue of the reference's per-variant cycles/word table
 (linux/instrumented_benchmark.cpp -t): every device kernel variant timed
 with the headline's gated multi-K fit (bench/harness.gated_kernel_time_fit)
 over the same data, reported as words/s, GB/s, and fraction of the
@@ -29,49 +29,12 @@ def _bodies(n_words: int):
     bodies = {
         "xla": lambda a: jnp.concatenate(stream_sums_xla(a)),
     }
-    if jax.default_backend() == "tpu":
-        if n_words % (8 * PK.GROUP_WORDS) == 0:
-            bodies["pallas_bitsliced"] = lambda a: jnp.concatenate(
-                PK.stream_sums_pallas(a)
-            )
-            bodies["pallas_report"] = lambda a: jnp.concatenate(
-                PK.stream_sums_pallas(a, report=True)
-            )
-            # the unpacked pre tiles (round 4) + the SHIPPED packed
-            # tiles (round 5: 24/20 rows = 1.5/1.25 B/word of HBM);
-            # each row is fed from its own plane layout and its
-            # vs_roofline prices the bytes the kernel actually reads
-            # (the roster's _row_bytes map)
-            bodies["pallas_pre"] = lambda p: jnp.concatenate(
-                PK.stream_sums_pallas_pre(p)
-            )
-            bodies["pallas_pre_report"] = lambda p: jnp.concatenate(
-                PK.stream_sums_pallas_pre(p, report=True)
-            )
-            bodies["pallas_pre_packed"] = lambda p: jnp.concatenate(
-                PK.stream_sums_pallas_pre(p, packed=True)
-            )
-            bodies["pallas_pre_packed_report"] = lambda p: jnp.concatenate(
-                PK.stream_sums_pallas_pre(p, report=True, packed=True)
-            )
-            bodies["pospopcnt_bitsliced"] = lambda a: PK.pospopcnt_u16_pallas(a)
-        if n_words % (16 * PK.GROUP_WORDS) == 0:
-            bodies["pallas_nblk16"] = lambda a: jnp.concatenate(
-                PK.stream_sums_pallas(a, nblk=16)
-            )
-        if n_words % (8 * PK.GROUP_WORDS) == 0:
-            # the opt-in two-level CSA schedule (round-2 default) — kept
-            # on the roster so the A/B that retired it stays reproducible
-            bodies["pallas_two_level"] = lambda a: jnp.concatenate(
-                PK.stream_sums_pallas(a, two_level=True)
-            )
-        if n_words % PK.WORDS_STEP == 0:
-            def words_body(a):
-                padded = a.reshape(-1, 512, 128)
-                t, f = PK._run_words_kernel(padded, False)
-                return jnp.concatenate([t, f])
-
-            bodies["pallas_words"] = words_body
+    if jax.default_backend() == "gpu":
+        bodies["pallas_bitsliced"] = lambda a: jnp.concatenate(
+            PK.stream_sums_pallas(a))
+        bodies["pallas_report"] = lambda a: jnp.concatenate(
+            PK.stream_sums_pallas(a, report=True))
+        bodies["pospopcnt_bitsliced"] = PK.pospopcnt_u16_pallas
     return bodies
 
 
@@ -96,31 +59,9 @@ def run(n_words: int = 64 * 1024 * 1024, iters: int = 5,
 
     lines = [HEADER]
     bodies = _bodies(n_words)
-    args = {}
-    if any(name.startswith("pallas_pre") for name in bodies):
-        from ..ops import pallas_kernels as PK
-        from ..ops.bitslice import pretranspose_host, pretranspose_host_packed
-
-        args["pre"] = jax.block_until_ready(
-            jnp.asarray(pretranspose_host(x_host)))
-        args["packed_full"] = jax.block_until_ready(jnp.asarray(
-            pretranspose_host_packed(x_host, PK.PACKED_ROWS_FULL)))
-        args["packed_report"] = jax.block_until_ready(jnp.asarray(
-            pretranspose_host_packed(x_host, PK.PACKED_ROWS_REPORT)))
-
-    def _arg_for(name):
-        if name == "pallas_pre_packed":
-            return args["packed_full"]
-        if name == "pallas_pre_packed_report":
-            return args["packed_report"]
-        if name.startswith("pallas_pre"):
-            return args["pre"]
-        return x
-
     for name, body in bodies.items():
-        arg = _arg_for(name)
         if check:
-            out = np.asarray(jax.jit(body)(arg), dtype=np.int64)
+            out = np.asarray(jax.jit(body)(x), dtype=np.int64)
             if name.startswith("pospopcnt"):
                 ok = (out == pp_ref).all()
             else:
@@ -143,12 +84,8 @@ def run(n_words: int = 64 * 1024 * 1024, iters: int = 5,
             if not ok:
                 lines.append(f"{name}\t{n_words}\tMISMATCH")
                 continue
-        # the kernel's OWN HBM bytes: packed tiles read 1.5/1.25 B/word
-        # — gating/pricing them at 2 B/word would reject honest samples
-        # as above-roofline and overstate their GB/s
-        row_bytes = (arg.size * arg.dtype.itemsize
-                     if name.startswith("pallas_pre") else 2 * n_words)
-        fit = gated_kernel_time_fit(body, arg, roof_bytes_per_s=roof,
+        row_bytes = 2 * n_words
+        fit = gated_kernel_time_fit(body, x, roof_bytes_per_s=roof,
                                     n_bytes=row_bytes, iters=iters)
         t = fit.slope_s
         gated_ok = bool(fit.gate_passed)   # verdict set by the shared gate

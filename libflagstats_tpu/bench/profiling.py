@@ -1,6 +1,6 @@
 """Profiling / tracing utilities.
 
-TPU counterpart of the reference's perf_event wrapper
+Device counterpart of the reference's perf_event wrapper
 (linux/linux-perf-events.h): captures JAX profiler traces viewable in
 Perfetto / TensorBoard, plus a lightweight section timer."""
 from __future__ import annotations
@@ -11,10 +11,10 @@ from pathlib import Path
 
 
 @contextlib.contextmanager
-def trace(logdir: str | Path = "/tmp/libflagstats_trace"):
+def trace(logdir: str | Path):
     """Capture a device trace around a block:
 
-        with profiling.trace("/tmp/trace"):
+        with profiling.trace("traces/flagstat"):
             fn(x).block_until_ready()
 
     Open the resulting directory with TensorBoard or ui.perfetto.dev."""

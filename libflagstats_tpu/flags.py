@@ -1,6 +1,6 @@
 """SAM FLAG bit model and flagstat counter layout.
 
-TPU-native re-derivation of the reference bit model
+Re-derivation of the reference bit model
 (reference: libflagstats.h:69-112) plus the three synthesized bits the
 SIMD/Pallas kernels create:
 

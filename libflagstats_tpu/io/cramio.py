@@ -5,8 +5,7 @@ point, /root/reference/README.md:34,198-217).
 
 CRAM is columnar: every data series lives in its own (per-slice)
 block, so a flagstat engine can decode ONLY the flag-bearing series
-and skip sequences/qualities/names entirely — the same trick the
-packed plane layout plays on the device side. The series that
+and skip sequences/qualities/names entirely. The series that
 reconstruct a BAM FLAG (htslib convention):
 
   BF  BAM bit flags with the mate bits (0x8 MUNMAP, 0x20 MREVERSE)

@@ -7,7 +7,7 @@
 // block specification, and Zstd via the system libzstd. A std::thread
 // worker pool decodes blocks in parallel — the reference pipeline is
 // sequential and ~80% ingest-bound (README.md:27-29), so parallel decode
-// is where the TPU pipeline wins back the host side.
+// is where the device pipeline wins back the host side.
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this image).
 
@@ -22,11 +22,6 @@
 #include <vector>
 
 #include <dlfcn.h>
-#include <zstd.h>
-
-#if defined(__AVX2__)
-#include <immintrin.h>
-#endif
 
 extern "C" {
 
@@ -349,25 +344,62 @@ int64_t lfs_lz4_compress_own(const uint8_t* src, int64_t src_len,
 }
 
 // ---------------------------------------------------------------------------
-// Zstd via libzstd
+// Zstd via the system libzstd, loaded at runtime like liblz4: the shared
+// library is enough (no dev package, no link flag). Without it every
+// zstd entry returns -1 and the Python codec reports the failure.
 // ---------------------------------------------------------------------------
+
+typedef size_t (*lfs_ZSTD_compress_t)(void*, size_t, const void*, size_t,
+                                      int);
+typedef size_t (*lfs_ZSTD_decompress_t)(void*, size_t, const void*, size_t);
+typedef size_t (*lfs_ZSTD_compressBound_t)(size_t);
+typedef unsigned (*lfs_ZSTD_isError_t)(size_t);
+
+static lfs_ZSTD_compress_t lfs_sys_zstd_compress = nullptr;
+static lfs_ZSTD_decompress_t lfs_sys_zstd_decompress = nullptr;
+static lfs_ZSTD_compressBound_t lfs_sys_zstd_bound = nullptr;
+static lfs_ZSTD_isError_t lfs_sys_zstd_is_error = nullptr;
+
+static bool lfs_zstd_sys_init() {
+    static std::once_flag once;
+    std::call_once(once, [] {
+        void* h = dlopen("libzstd.so.1", RTLD_NOW);
+        if (!h) h = dlopen("libzstd.so", RTLD_NOW);
+        if (!h) return;
+        lfs_sys_zstd_compress = reinterpret_cast<lfs_ZSTD_compress_t>(
+            dlsym(h, "ZSTD_compress"));
+        lfs_sys_zstd_decompress = reinterpret_cast<lfs_ZSTD_decompress_t>(
+            dlsym(h, "ZSTD_decompress"));
+        lfs_sys_zstd_bound = reinterpret_cast<lfs_ZSTD_compressBound_t>(
+            dlsym(h, "ZSTD_compressBound"));
+        lfs_sys_zstd_is_error = reinterpret_cast<lfs_ZSTD_isError_t>(
+            dlsym(h, "ZSTD_isError"));
+    });
+    return lfs_sys_zstd_compress && lfs_sys_zstd_decompress &&
+           lfs_sys_zstd_bound && lfs_sys_zstd_is_error;
+}
 
 int64_t lfs_zstd_compress(const uint8_t* src, int64_t src_len,
                           uint8_t* dst, int64_t dst_cap, int level) {
-    const size_t r = ZSTD_compress(dst, static_cast<size_t>(dst_cap),
-                                   src, static_cast<size_t>(src_len), level);
-    return ZSTD_isError(r) ? -1 : static_cast<int64_t>(r);
+    if (!lfs_zstd_sys_init()) return -1;
+    const size_t r = lfs_sys_zstd_compress(
+        dst, static_cast<size_t>(dst_cap), src, static_cast<size_t>(src_len),
+        level);
+    return lfs_sys_zstd_is_error(r) ? -1 : static_cast<int64_t>(r);
 }
 
 int64_t lfs_zstd_decompress(const uint8_t* src, int64_t src_len,
                             uint8_t* dst, int64_t dst_cap) {
-    const size_t r = ZSTD_decompress(dst, static_cast<size_t>(dst_cap),
-                                     src, static_cast<size_t>(src_len));
-    return ZSTD_isError(r) ? -1 : static_cast<int64_t>(r);
+    if (!lfs_zstd_sys_init()) return -1;
+    const size_t r = lfs_sys_zstd_decompress(
+        dst, static_cast<size_t>(dst_cap), src, static_cast<size_t>(src_len));
+    return lfs_sys_zstd_is_error(r) ? -1 : static_cast<int64_t>(r);
 }
 
 int64_t lfs_zstd_bound(int64_t src_len) {
-    return static_cast<int64_t>(ZSTD_compressBound(static_cast<size_t>(src_len)));
+    if (!lfs_zstd_sys_init()) return -1;
+    return static_cast<int64_t>(
+        lfs_sys_zstd_bound(static_cast<size_t>(src_len)));
 }
 
 int64_t lfs_lz4_bound(int64_t src_len) {
@@ -551,156 +583,6 @@ int64_t lfs_flagstat_framed(const uint8_t* stream, int64_t stream_len,
     return 0;
 }
 
-// ---------------------------------------------------------------------------
-// Host-side bit transpose ("pretransposed ingest"): uint16 FLAG words ->
-// (groups, 32, 8, 128) uint32 plane tiles, byte-identical to the device
-// kernel's internal sublane-bitcast + 4-stage masked-swap network (see
-// ops/bitslice.pretranspose_host_np for the NumPy reference). Lets the
-// device kernel skip its in-VMEM transpose. Stages j=8..1 never cross
-// 16-register halves, so each half fits the AVX2 register file.
-// ---------------------------------------------------------------------------
-
-}  // extern "C"
-
-namespace {
-
-#if defined(__AVX2__)
-static inline void lfs_swap_pair_avx2(__m256i& a, __m256i& b, int j,
-                                      __m256i m) {
-    __m256i t = _mm256_and_si256(
-        _mm256_xor_si256(a, _mm256_srli_epi32(b, j)), m);
-    // note: shift count must be an immediate for best codegen; j is one
-    // of 8/4/2/1 from an unrolled caller in practice
-    a = _mm256_xor_si256(a, t);
-    b = _mm256_xor_si256(b, _mm256_slli_epi32(t, j));
-}
-#endif
-
-inline void lfs_swap_pair_scalar(uint32_t* a, uint32_t* b, int j, uint32_t m,
-                                 int lanes) {
-    for (int i = 0; i < lanes; ++i) {
-        uint32_t t = (a[i] ^ (b[i] >> j)) & m;
-        a[i] ^= t;
-        b[i] ^= t << j;
-    }
-}
-
-constexpr int kStageJ[4] = {8, 4, 2, 1};
-constexpr uint32_t kStageM[4] = {0x00FF00FFu, 0x0F0F0F0Fu, 0x33333333u,
-                                 0x55555555u};
-
-}  // namespace
-
-namespace {
-
-// shared transpose walk: dst_row_map[orig_row] = packed destination row
-// or -1 to skip (the packed pre-mode layout ships only the rows the
-// device transform consumes — 24/32 full, 20/32 report — cutting the
-// device's HBM read 25%/37.5%; ops/pallas_kernels.PACKED_ROWS_*).
-// n_dst_rows is the per-group row stride of dst.
-int64_t bit_transpose_rows(const uint16_t* src, int64_t n_words,
-                           uint32_t* dst, const int32_t* dst_row_map,
-                           int n_dst_rows, int n_threads) {
-    if (n_words % 65536) return -1;
-    const int64_t n_groups = n_words / 65536;
-
-    auto do_group = [&](int64_t g) {
-        const uint16_t* gs = src + g * 65536;
-        uint32_t* gd = dst + g * (int64_t)n_dst_rows * 8 * 128;
-        for (int half = 0; half < 2; ++half) {
-            const int k0 = half * 16;
-            for (int s = 0; s < 8; ++s) {
-#if defined(__AVX2__)
-                for (int lc = 0; lc < 128; lc += 8) {
-                    __m256i A[16];
-                    for (int k = 0; k < 16; ++k) {
-                        const uint16_t* row0 =
-                            gs + (k0 + k) * 2048 + (2 * s) * 128 + lc;
-                        const uint16_t* row1 = row0 + 128;
-                        __m256i lo = _mm256_cvtepu16_epi32(
-                            _mm_loadu_si128((const __m128i*)row0));
-                        __m256i hi = _mm256_cvtepu16_epi32(
-                            _mm_loadu_si128((const __m128i*)row1));
-                        A[k] = _mm256_or_si256(lo, _mm256_slli_epi32(hi, 16));
-                    }
-                    for (int st = 0; st < 4; ++st) {
-                        const int j = kStageJ[st];
-                        const __m256i m = _mm256_set1_epi32((int)kStageM[st]);
-                        for (int k = 0; k < 16; ++k) {
-                            if (k & j) continue;
-                            lfs_swap_pair_avx2(A[k], A[k + j], j, m);
-                        }
-                    }
-                    for (int k = 0; k < 16; ++k) {
-                        const int dr = dst_row_map[k0 + k];
-                        if (dr < 0) continue;
-                        _mm256_storeu_si256(
-                            (__m256i*)(gd + dr * 1024 + s * 128 + lc),
-                            A[k]);
-                    }
-                }
-#else
-                uint32_t A[16][128];
-                for (int k = 0; k < 16; ++k) {
-                    const uint16_t* row0 = gs + (k0 + k) * 2048 + (2 * s) * 128;
-                    const uint16_t* row1 = row0 + 128;
-                    for (int l = 0; l < 128; ++l)
-                        A[k][l] = (uint32_t)row0[l] | ((uint32_t)row1[l] << 16);
-                }
-                for (int st = 0; st < 4; ++st) {
-                    const int j = kStageJ[st];
-                    for (int k = 0; k < 16; ++k) {
-                        if (k & j) continue;
-                        lfs_swap_pair_scalar(A[k], A[k + j], j, kStageM[st], 128);
-                    }
-                }
-                for (int k = 0; k < 16; ++k) {
-                    const int dr = dst_row_map[k0 + k];
-                    if (dr < 0) continue;
-                    std::memcpy(gd + dr * 1024 + s * 128, A[k],
-                                128 * sizeof(uint32_t));
-                }
-#endif
-            }
-        }
-    };
-
-    int nt = n_threads > 0 ? n_threads
-                           : (int)std::thread::hardware_concurrency();
-    if (nt < 1) nt = 1;
-    if (nt > n_groups) nt = (int)n_groups;
-    if (nt <= 1) {
-        for (int64_t g = 0; g < n_groups; ++g) do_group(g);
-    } else {
-        std::atomic<int64_t> next{0};
-        std::vector<std::thread> pool;
-        for (int t = 0; t < nt; ++t) {
-            pool.emplace_back([&]() {
-                for (;;) {
-                    const int64_t g = next.fetch_add(1);
-                    if (g >= n_groups) return;
-                    do_group(g);
-                }
-            });
-        }
-        for (auto& th : pool) th.join();
-    }
-    return 0;
-}
-
-}  // namespace
-
-extern "C" {
-
-// src: n_words uint16 (n_words % 65536 == 0); dst: (n_words/65536, 32, 8, 128)
-// uint32. Returns 0 on success.
-int64_t lfs_bit_transpose(const uint16_t* src, int64_t n_words,
-                          uint32_t* dst, int n_threads) {
-    int32_t identity[32];
-    for (int k = 0; k < 32; ++k) identity[k] = k;
-    return bit_transpose_rows(src, n_words, dst, identity, 32, n_threads);
-}
-
 // CRAM itf8 stream decoder (io/cramio.py fast path): decode exactly
 // max_out values, returning the bytes consumed, or -1 on truncation.
 // itf8 (CRAM 3.0 §2.3): leading-ones prefix gives 0-4 extra bytes; the
@@ -734,24 +616,6 @@ int64_t lfs_itf8_decode(const uint8_t* src, int64_t n_bytes,
         off += need;
     }
     return off;
-}
-
-// Packed variant: dst carries only the listed original rows, in order —
-// dst shape (n_words/65536, n_rows, 8, 128) uint32. rows must be unique
-// and in [0, 32). Returns 0 on success, -1 on a bad length, -2 on a bad
-// row list.
-int64_t lfs_bit_transpose_packed(const uint16_t* src, int64_t n_words,
-                                 uint32_t* dst, const int32_t* rows,
-                                 int32_t n_rows, int n_threads) {
-    if (n_rows < 1 || n_rows > 32) return -2;
-    int32_t map[32];
-    for (int k = 0; k < 32; ++k) map[k] = -1;
-    for (int32_t i = 0; i < n_rows; ++i) {
-        const int32_t r = rows[i];
-        if (r < 0 || r >= 32 || map[r] != -1) return -2;
-        map[r] = i;
-    }
-    return bit_transpose_rows(src, n_words, dst, map, n_rows, n_threads);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // perf_event_open counter groups for the native host tier.
 //
-// TPU-native framework's analogue of the reference's instrumented
+// This framework's analogue of the reference's instrumented
 // benchmark wrapper (reference: linux/linux-perf-events.h:16-90 and its
 // use in linux/instrumented_benchmark.cpp:161-166,417-454): a group of
 // hardware counters around the host kernels so cycles/instructions per

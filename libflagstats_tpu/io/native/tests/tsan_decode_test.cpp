@@ -1,5 +1,5 @@
-// TSAN stress for the native thread pools: lfs_decode_stream and
-// lfs_bit_transpose (pretransposed-ingest host transpose)
+// TSAN stress for the native thread pools: lfs_decode_stream and the
+// fused framed decode+count pool
 #include <cstdint>
 #include <cstring>
 #include <cstdio>
@@ -9,7 +9,6 @@ extern "C" {
 int64_t lfs_lz4_compress(const uint8_t*, int64_t, uint8_t*, int64_t, int);
 int64_t lfs_lz4_bound(int64_t);
 int64_t lfs_decode_stream(const uint8_t*, int64_t, uint8_t*, int64_t, int, int);
-int64_t lfs_bit_transpose(const uint16_t*, int64_t, uint32_t*, int);
 int64_t lfs_flagstat_framed(const uint8_t*, int64_t, int, int, uint64_t*,
                             int64_t*);
 int64_t lfs_flagstat_u16(const uint16_t*, int64_t, uint64_t*, int);
@@ -37,20 +36,6 @@ int main() {
                                       out.data(), out.size(), 1, 8);
         if (r != (int64_t)raw.size() || memcmp(out.data(), raw.data(), raw.size())) {
             printf("decode mismatch\n");
-            return 1;
-        }
-    }
-    // threaded bit transpose: 8 threads over disjoint 65536-word groups;
-    // single-thread run is the race-free reference
-    {
-        const int64_t n_words = 24 * 65536;
-        std::vector<uint16_t> words(n_words);
-        for (auto& w : words) w = (uint16_t)(rng() & 0xFFFF);
-        std::vector<uint32_t> t1(n_words / 2), t8(n_words / 2);
-        if (lfs_bit_transpose(words.data(), n_words, t1.data(), 1) != 0 ||
-            lfs_bit_transpose(words.data(), n_words, t8.data(), 8) != 0 ||
-            memcmp(t1.data(), t8.data(), t1.size() * 4) != 0) {
-            printf("bit transpose mismatch\n");
             return 1;
         }
     }

@@ -1,8 +1,9 @@
 """ctypes loader for the native IO library (C++, built on demand).
 
-The image has no pybind11, so the native lib exposes a C ABI and is
-bound with ctypes. Built lazily with g++ into build/ and cached; if the
-toolchain or libzstd is unavailable, callers fall back to the pure-Python
+The native lib exposes a C ABI and is bound with ctypes (no pybind11).
+Built lazily with g++ into build/ and cached; it needs only a C++
+compiler and zlib's headers (liblz4, libzstd and libdeflate are used when
+present). If the build fails, callers fall back to the pure-Python
 codec (io/codec.py)."""
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def _build() -> Path:
     try:
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            *(str(s) for s in _SRCS), "-o", tmp, "-lzstd", "-lz",
+            *(str(s) for s in _SRCS), "-o", tmp, "-lz", "-ldl",
             "-pthread",
             # libdeflate (2.5x zlib on whole-buffer BGZF members, measured
             # in io/native/bgzf.h) — linked iff the compiler itself can
@@ -170,8 +171,8 @@ def load():
         # A stale prebuilt .so can pass the mtime check yet lack newer
         # symbols (e.g. an rsync -a checkout carrying old build/ onto a
         # host whose tag matches): binding raises AttributeError. Force
-        # one rebuild before giving up; any remaining failure means
-        # toolchain/libzstd missing -> pure-Python fallback.
+        # one rebuild before giving up; any remaining failure means the
+        # toolchain or zlib headers are missing -> pure-Python fallback.
         try:
             _LIB_PATH.unlink(missing_ok=True)
             lib = _bind(ctypes.CDLL(str(_build())))
@@ -208,11 +209,6 @@ def _bind(lib):
     lib.lfs_zstd_bound.argtypes = [i64]
     lib.lfs_decode_stream.restype = i64
     lib.lfs_decode_stream.argtypes = [u8p, i64, ctypes.c_void_p, i64, i32, i32]
-    lib.lfs_bit_transpose.restype = i64
-    lib.lfs_bit_transpose.argtypes = [ctypes.c_void_p, i64, ctypes.c_void_p, i32]
-    lib.lfs_bit_transpose_packed.restype = i64
-    lib.lfs_bit_transpose_packed.argtypes = [
-        ctypes.c_void_p, i64, ctypes.c_void_p, ctypes.c_void_p, i32, i32]
     lib.lfs_itf8_decode.restype = i64
     lib.lfs_itf8_decode.argtypes = [ctypes.c_void_p, i64,
                                     ctypes.c_void_p, i64]

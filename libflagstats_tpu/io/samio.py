@@ -1,6 +1,6 @@
 """SAM-text ingest and synthetic generation.
 
-TPU-framework equivalents of the reference's tiny drivers:
+Equivalents of the reference's tiny drivers:
 * utility: text FLAG integers -> little-endian uint16 binary
   (reference: benchmark/utility.cpp:10-20; usage
   `samtools view | cut -f 2 | utility > flags.bin`, README.md:56)

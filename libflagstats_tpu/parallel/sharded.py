@@ -1,15 +1,16 @@
-"""Data-parallel flagstat over a TPU device mesh.
+"""Data-parallel flagstat over a device mesh.
 
 The reference is single-core; its natural shard unit is the sequential
 stream of independent 512k-record blocks whose partial counters
 accumulate into one array (reference: benchmark/flagstats.cpp:311-332).
 Here that decomposition goes wide: the FLAG stream is sharded across a
-1-D ``data`` mesh, each chip runs the local kernel (Pallas on TPU, plain
-XLA elsewhere), and the per-chip (C[k], F[k]) stream sums — a tiny
-int32[2,16] payload — merge with ``jax.lax.psum`` over ICI. Multi-host
-slices shard the same way across processes (DCN only carries the final
-psum), so scaling is communication-trivial: the all-reduce payload is
-128 bytes regardless of stream length.
+1-D ``data`` mesh, each device runs the local kernel (the bit-sliced
+Pallas kernel on GPUs, plain XLA elsewhere), and the per-device
+(C[k], F[k]) stream sums — a tiny int32[2,16] payload — merge with
+``jax.lax.psum`` (NCCL between GPUs; every card of a host reaches every
+other over NVLink, so a 1-D mesh fits). Multi-process runs shard the
+same way across processes, so scaling is communication-trivial: the
+all-reduce payload is 128 bytes regardless of stream length.
 """
 from __future__ import annotations
 
@@ -20,12 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.pallas_kernels import (
-    GROUP_WORDS,
-    WORDS_STEP,
-    stream_sums_pallas,
-    stream_sums_words,
-)
+from ..ops.pallas_kernels import stream_sums_pallas
 from ..ops.xla_ops import assemble_counters, stream_sums_xla
 
 AXIS = "data"
@@ -37,41 +33,30 @@ def data_mesh(devices=None) -> Mesh:
     return Mesh(devices.reshape(-1), (AXIS,))
 
 
-def _local_sums(xs: jax.Array, impl: str, nblk: int, interpret: bool,
+def _local_sums(xs: jax.Array, impl: str, interpret: bool,
                 report: bool = False):
     if impl == "pallas":
-        return stream_sums_pallas(xs, nblk=nblk, interpret=interpret,
-                                  report=report)
-    if impl == "pallas_pre":
-        # packed tiles (round 5): 25%/37.5% less HBM per shard — see
-        # stream_sums_pallas_pre
-        from ..ops.pallas_kernels import stream_sums_pallas_pre
-
-        return stream_sums_pallas_pre(xs, nblk=nblk, interpret=interpret,
-                                      report=report, packed=True)
-    if impl == "pallas_words":
-        return stream_sums_words(xs, interpret)
+        return stream_sums_pallas(xs, report=report, interpret=interpret)
     if impl != "xla":
         # counters would come back CORRECT via the xla fallthrough, so a
         # typo'd impl would silently benchmark/validate the wrong kernel
         raise ValueError(
-            f"unknown sharded impl {impl!r} (choose pallas, pallas_pre, "
-            "pallas_words, or xla; report mode is the report= flag, not "
-            "an impl name)")
+            f"unknown sharded impl {impl!r} (choose pallas or xla; report "
+            "mode is the report= flag, not an impl name)")
     return stream_sums_xla(xs)
 
 
-def make_sharded_counter_fn(mesh: Mesh, impl: str = "xla", nblk: int = 8,
+def make_sharded_counter_fn(mesh: Mesh, impl: str = "xla",
                             interpret: bool = False, report: bool = False):
     """Build a jitted (padded_flags, n) -> (32,) int32 counter function.
 
     ``padded_flags`` must be zero-padded to a multiple of
-    mesh.size * shard granule; ``n`` is the true word count (traced
+    mesh.size * SHARD_GRANULE; ``n`` is the true word count (traced
     scalar, so one compilation serves every tail length).
     """
 
     def local(xs: jax.Array, n: jax.Array) -> jax.Array:
-        total, fail = _local_sums(xs, impl, nblk, interpret, report)
+        total, fail = _local_sums(xs, impl, interpret, report)
         total = jax.lax.psum(total, AXIS)
         fail = jax.lax.psum(fail, AXIS)
         return assemble_counters(total, fail, n)
@@ -84,13 +69,9 @@ def make_sharded_counter_fn(mesh: Mesh, impl: str = "xla", nblk: int = 8,
     return jax.jit(mapped)
 
 
-def shard_granule(impl: str, nblk: int = 8) -> int:
-    """Per-shard length quantum (Pallas grid step or XLA lane width)."""
-    if impl in ("pallas", "pallas_pre"):
-        return nblk * GROUP_WORDS
-    if impl == "pallas_words":
-        return WORDS_STEP
-    return 8
+#: per-shard length quantum (words): keeps every shard an even number
+#: of words, so the kernel's uint32 view needs no per-shard pad
+SHARD_GRANULE = 8
 
 
 def pad_for_mesh(x: np.ndarray, mesh_size: int, granule: int) -> np.ndarray:
@@ -108,18 +89,17 @@ def _default_mesh(dev_ids) -> Mesh:
 
 
 @functools.cache
-def _counter_fn_for(mesh: Mesh, impl, nblk, interpret, report):
+def _counter_fn_for(mesh: Mesh, impl, interpret, report):
     """Cache keyed on the mesh itself (Mesh is hashable): the
-    explicit-mesh path must not rebuild shard_map + jit per call —
-    each rebuild is a fresh executable, and compiles are minutes on
-    this stack."""
-    return make_sharded_counter_fn(mesh, impl=impl, nblk=nblk,
-                                   interpret=interpret, report=report)
+    explicit-mesh path must not rebuild shard_map + jit per call — each
+    rebuild is a fresh executable to compile."""
+    return make_sharded_counter_fn(mesh, impl=impl, interpret=interpret,
+                                   report=report)
 
 
 def flagstat_sharded(
     x, mesh: Mesh | None = None, impl: str | None = None,
-    nblk: int | None = None, interpret: bool = False, report: bool = False,
+    interpret: bool = False, report: bool = False,
 ) -> np.ndarray:
     """One-call data-parallel flagstat of a host uint16 array.
 
@@ -127,12 +107,14 @@ def flagstat_sharded(
     the stream sums, and assembles the 32-counter vector (bit-exact vs
     the single-device run — tested on a virtual 8-device mesh).
 
-    ``report=True`` selects the 21-stream report-mode kernel on the
-    Pallas path (only flags.REPORT_COUNTERS are guaranteed); the XLA
-    tier computes all 32 counters either way. ``nblk`` defaults to the
-    measured-best depth for the mode (config.nblk_for) on the Pallas
-    path. Streams past the int32 device cap split into accumulating
-    rounds automatically (exact by the block-accumulative contract)."""
+    ``impl`` defaults to the backend's device tier (ops/dispatch.DISPATCH:
+    "pallas" on GPUs, "xla" elsewhere). ``report=True`` selects the
+    21-stream report-mode kernel on the Pallas path (only
+    flags.REPORT_COUNTERS are guaranteed); the XLA tier computes all 32
+    counters either way. Streams past the int32 device cap split into
+    accumulating rounds automatically (exact by the block-accumulative
+    contract). ``interpret`` runs the Pallas kernel in interpret mode
+    (tests)."""
     from ..ops import dispatch as _dispatch
     from ..ops.dispatch import _validate_u16
 
@@ -140,35 +122,18 @@ def flagstat_sharded(
     #                          flagstats_u16 — silent uint16 wrapping
     #                          would return plausible-looking garbage
     if impl is None:
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if nblk is None:
-        if impl in ("pallas", "pallas_pre"):
-            from ..config import nblk_for
-
-            nblk = nblk_for(report=report)
-        else:
-            nblk = 8
+        impl = _dispatch.device_impl()
     if mesh is None:
         mesh = _default_mesh(tuple(d.id for d in jax.devices()))
     if arr.size > _dispatch.DEVICE_WORD_CAP:
         rounds = -(-arr.size // _dispatch.DEVICE_WORD_CAP)
         acc = np.zeros(32, dtype=np.uint64)
         for part in np.array_split(arr, rounds):
-            acc += flagstat_sharded(part, mesh=mesh, impl=impl, nblk=nblk,
+            acc += flagstat_sharded(part, mesh=mesh, impl=impl,
                                     interpret=interpret, report=report)
         return acc
-    fn = _counter_fn_for(mesh, impl, nblk, interpret, report)
-    padded = pad_for_mesh(arr, mesh.size, shard_granule(impl, nblk))
-    if impl == "pallas_pre":
-        # the shipped device tier (round 4): each host pretransposes its
-        # words and the mesh shards the plane tiles on the leading axis
-        # — zero-pad groups are count-neutral, so the psum/assembly
-        # contract is unchanged. Round 5: tiles are PACKED (24/20 rows)
-        # — 25%/37.5% less HBM and wire traffic per shard
-        from ..ops.bitslice import pretranspose_host_packed
-        from ..ops.pallas_kernels import packed_rows_for
-
-        padded = pretranspose_host_packed(padded, packed_rows_for(report))
+    fn = _counter_fn_for(mesh, impl, interpret, report)
+    padded = pad_for_mesh(arr, mesh.size, SHARD_GRANULE)
     sharding = NamedSharding(mesh, P(AXIS))
     y = jax.device_put(padded, sharding)
     counters = fn(y, jnp.int32(arr.size))

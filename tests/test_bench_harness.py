@@ -1,10 +1,11 @@
 """Unit coverage for the self-defending measurement helpers.
 
 The gates themselves (fit ok / dispersion / reject-above-roofline) are
-exercised on hardware by bench.py and `cli kernels`; these tests pin the
-pure retry/acceptance logic and the reference-counter disk cache so a
-regression shows up in the CPU suite, not in a 20-minute TPU run.
+exercised on the card by bench.py and `cli kernels`; these tests pin the
+pure retry/acceptance logic, the peak table and the reference-counter
+disk cache so a regression shows up in the CPU suite.
 """
+import jax
 import numpy as np
 import pytest
 
@@ -120,7 +121,7 @@ def test_refcache_key_depends_on_semantics_source(tmp_path, monkeypatch):
     assert len(list(tmp_path.glob("bench_oracle_*.npy"))) == 2
 
 
-def test_kernels_roster_runs_on_cpu(tmp_path):
+def test_kernels_roster_runs_on_cpu(tmp_path, monkeypatch):
     """`cli kernels` row assembly end-to-end on the CPU backend: header,
     the gate-annotated xla row (the only CPU flagstat body) plus the two
     set-algebra rows, correctness checks against the cached oracle /
@@ -130,6 +131,9 @@ def test_kernels_roster_runs_on_cpu(tmp_path):
     reference files out of the repo's load-bearing .jax_cache."""
     from libflagstats_tpu.bench import kernels
 
+    # the CPU has no entry in the peak table; give it one for the test
+    monkeypatch.setitem(harness.HBM_NOMINAL, jax.devices()[0].device_kind,
+                        1e12)
     lines = kernels.run(n_words=65536, iters=2, cache_dir=str(tmp_path))
     assert lines[0] == kernels.HEADER
     rows = [l for l in lines[1:] if not l.startswith("[roofline")]
@@ -176,3 +180,26 @@ def test_refcache_key_binds_to_data(tmp_path):
     c = np.arange(32, dtype=np.uint16)[::2]
     rc = refcache.oracle_counters(c, 16, seed=1, cache_dir=str(tmp_path))
     assert (rc == refcache.flagstat_numpy(c.copy()).astype(np.int64)).all()
+
+
+def test_peak_table_raises_for_unknown_device(monkeypatch):
+    """A device with no nominal bandwidth is an error, never a None that
+    would silently drop the physical gate."""
+    kind = jax.devices()[0].device_kind
+    monkeypatch.delitem(harness.HBM_NOMINAL, kind, raising=False)
+    with pytest.raises(ValueError, match="no nominal memory bandwidth"):
+        harness.hbm_nominal_bytes_per_s()
+    from libflagstats_tpu.bench import kernels
+
+    with pytest.raises(ValueError):
+        kernels.run(n_words=1 << 12, iters=1)
+
+
+def test_peak_table_holds_the_h100(monkeypatch):
+    assert harness.HBM_NOMINAL["NVIDIA H100 80GB HBM3"] == 3.35e12
+
+    class _Dev:
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    monkeypatch.setattr(harness.jax, "devices", lambda: [_Dev()])
+    assert harness.hbm_nominal_bytes_per_s() == 3.35e12

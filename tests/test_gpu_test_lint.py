@@ -1,9 +1,9 @@
-"""Static undefined-name lint for TPU-gated test files.
+"""Static undefined-name lint for card-only test files.
 
-tests/test_pallas_tpu.py module-skips unless RUN_TPU_TESTS=1, so the CPU
-suite never executes its test bodies — a refactor once moved a name out
-of its import list and the resulting NameError was only visible on
-hardware runs. This check parses the gated file and verifies every name
+tests/test_bitsliced_gpu.py skips every test without a GPU, so the CPU
+suite never executes its test bodies — a name dropped from its imports
+would only show as a NameError on the card. This check parses the gated
+file and verifies every name
 *loaded* in a function body is bound somewhere: function-locally, at
 module level (imports/defs/assignments), or as a builtin. Conservative
 on scoping (anything stored anywhere in the function counts as bound),
@@ -15,7 +15,7 @@ import builtins
 from pathlib import Path
 
 TESTS_DIR = Path(__file__).resolve().parent
-GATED_FILES = ["test_pallas_tpu.py"]
+GATED_FILES = ["test_bitsliced_gpu.py"]
 
 
 def _module_level_names(tree: ast.Module) -> set:
@@ -50,8 +50,8 @@ def _module_level_names(tree: ast.Module) -> set:
 #: local modules whose from-imports the lint additionally resolves by
 #: importing them on CPU: a stale `from conftest import X` binds X
 #: statically (so the undefined-name walk passes) yet still raises
-#: ImportError at collection time on TPU — the sibling of the bug this
-#: lint exists for
+#: ImportError at collection time on the card — the sibling of the bug
+#: this lint exists for
 _LOCAL_MODULE_PREFIXES = ("conftest", "libflagstats_tpu")
 
 
@@ -126,7 +126,7 @@ def _test_functions(tree: ast.Module):
             stack.extend(node.body)
 
 
-def test_tpu_gated_files_have_no_unbound_names():
+def test_gpu_gated_files_have_no_unbound_names():
     problems = []
     for fname in GATED_FILES:
         path = TESTS_DIR / fname
@@ -194,7 +194,7 @@ def test_lint_except_handler_name_is_bound():
 
 def test_lint_resolves_local_from_imports():
     """A stale `from libflagstats_tpu import X` binds X statically but
-    still dies at TPU collection time — the resolver must flag it, and
+    still dies at collection time on the card — the resolver must flag it, and
     must accept a real attribute."""
     good = ast.parse("from libflagstats_tpu import flagstats\n")
     assert _stale_local_from_imports(good, "f.py") == []

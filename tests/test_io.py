@@ -208,12 +208,20 @@ def test_cli_instrumented_smoke():
             assert any("lfs_flagstat_u16" in r for r in perf)
 
 
-def test_cli_kernels_smoke():
-    """`cli kernels` (dispatch-free per-kernel table) runs on CPU."""
+def test_cli_kernels_smoke(monkeypatch, capsys):
+    """`cli kernels` (dispatch-free per-kernel table) refuses a device
+    with no known peak, and runs on the CPU once it has one."""
     import contextlib
 
+    import jax
+
+    from libflagstats_tpu.bench import harness
     from libflagstats_tpu.cli import main
 
+    assert main(["kernels", "-n", "4096", "-i", "1"]) == 1
+    assert "no nominal memory bandwidth" in capsys.readouterr().err
+    monkeypatch.setitem(harness.HBM_NOMINAL, jax.devices()[0].device_kind,
+                        1e12)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         assert main(["kernels", "-n", "65536", "-i", "1"]) == 0

@@ -1,10 +1,19 @@
 """`cli kernels` roster plumbing (bench/kernels.run) — CPU-runnable
 slice: row format stays 6-column TSV, correctness gating works, and
-the roofline row closes the table. (The TPU rows incl. the round-5
-packed tiers are exercised by running the tool on hardware; this
-pins the shared plumbing so a refactor can't silently break the
-roster between hardware runs.)"""
-import numpy as np
+the roofline row closes the table. (The GPU rows are exercised by
+running the tool on the card; this pins the shared plumbing so a
+refactor can't silently break the roster between card runs.)"""
+import jax
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def _cpu_peak(monkeypatch):
+    """The CPU has no entry in the peak table; give it one here."""
+    from libflagstats_tpu.bench import harness
+
+    monkeypatch.setitem(harness.HBM_NOMINAL, jax.devices()[0].device_kind,
+                        1e12)
 
 
 def test_roster_runs_and_formats(tmp_path):

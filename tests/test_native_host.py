@@ -123,7 +123,7 @@ def test_huge_stream_cap_is_device_only():
 
     for impl in ("native", "numpy"):
         assert len(list(D._device_chunks(_Fake(), impl, 8))) == 1
-    for impl in ("xla", "pallas", "pallas_words"):
+    for impl in ("xla", "pallas", "pallas_report"):
         chunks = list(D._device_chunks(_Fake(), impl, 8))
         assert len(chunks) == 2
         assert sum(c.size for c in chunks) == _Fake.size

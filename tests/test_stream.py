@@ -128,7 +128,7 @@ def test_checkpoint_bare_path_and_crash_resilience(tmp_path):
 
 def test_stream_native_matches_oracle(tmp_path):
     """The host-native streaming tier (decode pool + AVX2 kernel; the
-    default off-TPU when the native lib is present)."""
+    default whenever the native lib is present)."""
     import pytest
 
     from libflagstats_tpu.ops import native_host
@@ -254,66 +254,66 @@ def test_stream_checkpoint_resume_across_epoch_boundary(tmp_path, monkeypatch):
     assert_counters_equal(flagstat_numpy(x), resumed)
 
 
-def test_stream_pallas_pre_matches_oracle(tmp_path):
-    """Round-4 production tier: host bit-transpose stage feeding the
-    transpose-free Pallas kernel (interpret mode off-TPU). Exercises
-    chunk staging -> 2-deep transpose window -> dispatch ordering,
-    including a zero-padded tail chunk."""
+def test_stream_pallas_matches_oracle(tmp_path):
+    """The device tier of the stream: chunk staging -> dispatch of the
+    bit-sliced kernel (interpret mode off the card), including a
+    zero-padded tail chunk."""
     from libflagstats_tpu.bench.profiling import SectionTimer
     from libflagstats_tpu.ops.pallas_kernels import GROUP_WORDS
 
     x = generate_flags(3 * GROUP_WORDS + 18_928, seed=41, full_range=True)
-    path = tmp_path / "pre.lz4"
+    path = tmp_path / "p.lz4"
     C.write_framed(path, x, codec="lz4", level=1)
     timer = SectionTimer()
-    got = flagstat_stream(path, codec="lz4", impl="pallas_pre",
-                          chunk_words=GROUP_WORDS, timer=timer)
+    got = flagstat_stream(path, codec="lz4", impl="pallas",
+                          chunk_words=2 * GROUP_WORDS, timer=timer,
+                          interpret=True)
     assert_counters_equal(flagstat_numpy(x), got)
-    # the transpose stage really ran (4 chunks incl. the padded tail)
-    assert timer.counts.get("transpose_wait", 0) >= 4
-    assert timer.counts.get("dispatch", 0) >= 4
+    assert timer.counts.get("dispatch", 0) == 3   # 2 full chunks + tail
 
 
-def test_stream_pallas_pre_report_mode(tmp_path):
+def test_stream_pallas_report_mode(tmp_path):
     from libflagstats_tpu import flags as FL
     from libflagstats_tpu.ops.pallas_kernels import GROUP_WORDS
 
     x = generate_flags(GROUP_WORDS + 7, seed=42, full_range=True)
-    path = tmp_path / "pre_r.lz4"
+    path = tmp_path / "p_r.lz4"
     C.write_framed(path, x, codec="lz4", level=1)
-    got = flagstat_stream(path, codec="lz4", impl="pallas_pre",
-                          chunk_words=GROUP_WORDS, report=True)
+    got = flagstat_stream(path, codec="lz4", impl="pallas",
+                          chunk_words=GROUP_WORDS, report=True,
+                          interpret=True)
     ref = flagstat_numpy(x)
     idx = list(FL.REPORT_COUNTERS)
     np.testing.assert_array_equal(got.astype(np.int64)[idx], ref[idx])
 
 
-def test_stream_pallas_pre_rejects_partial_groups():
+def test_stream_rejects_unknown_impl():
     import pytest
 
-    with pytest.raises(ValueError, match="multiple"):
-        flagstat_stream("/nonexistent", impl="pallas_pre", chunk_words=1000)
+    with pytest.raises(ValueError, match="unknown stream impl"):
+        flagstat_stream("/nonexistent", impl="pallas_pre")
 
 
-def test_stream_pallas_pre_checkpoints_and_resumes(tmp_path):
-    """Review r3: the pre tier's 2-deep transpose window must drain at
-    due block boundaries so checkpoints actually happen, and a resumed
-    run must complete exactly."""
+def test_stream_pallas_checkpoints_and_resumes(tmp_path):
+    """The device tier checkpoints at block boundaries that fall on
+    chunk boundaries, and a resumed run completes exactly."""
     from libflagstats_tpu.ops.pallas_kernels import GROUP_WORDS
 
     x = generate_flags(3 * GROUP_WORDS, seed=43, full_range=True)
-    path = tmp_path / "ck_pre.lz4"
+    path = tmp_path / "ck_p.lz4"
     # small blocks so several block boundaries land on chunk boundaries
     C.write_framed(path, x, codec="lz4", level=1,
                    block_bytes=2 * GROUP_WORDS)
-    ck = StreamCheckpoint(str(tmp_path / "pre.ck"), every_blocks=2)
-    got = flagstat_stream(path, codec="lz4", impl="pallas_pre",
-                          chunk_words=GROUP_WORDS, checkpoint=ck)
+    ck = StreamCheckpoint(str(tmp_path / "p.ck"), every_blocks=2)
+    got = flagstat_stream(path, codec="lz4", impl="pallas",
+                          chunk_words=GROUP_WORDS, checkpoint=ck,
+                          interpret=True)
     assert_counters_equal(flagstat_numpy(x), got)
-    assert ck.block_index > 0, "pre tier never checkpointed (review r3)"
+    assert ck.block_index > 0, "device tier never checkpointed"
     # resume from the persisted state and finish: still exact
-    ck2 = StreamCheckpoint(str(tmp_path / "pre.ck"), every_blocks=2)
+    ck2 = StreamCheckpoint(str(tmp_path / "p.ck"), every_blocks=2)
     assert ck2.block_index == ck.block_index
-    got2 = flagstat_stream(path, codec="lz4", impl="pallas_pre",
-                           chunk_words=GROUP_WORDS, checkpoint=ck2)
+    got2 = flagstat_stream(path, codec="lz4", impl="pallas",
+                           chunk_words=GROUP_WORDS, checkpoint=ck2,
+                           interpret=True)
     assert_counters_equal(flagstat_numpy(x), got2)

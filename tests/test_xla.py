@@ -39,7 +39,7 @@ def test_pospopcnt_xla():
 
 @pytest.mark.parametrize("n", [1, 100, 4096, 100_000, (1 << 17) + 13, 1 << 18])
 def test_pospopcnt_matmul(n):
-    """MXU int8-matmul formulation, staged per chunk inside lax.scan:
+    """int8 ones-matmul formulation, staged per chunk inside lax.scan:
     bit-exact vs the host count at sizes below / straddling / above the
     chunk boundary."""
     x = generate_flags(n, seed=n % 97, full_range=True)

@@ -10,8 +10,6 @@ end-to-end path). The separate flagstat term is the forced-CPU XLA tier
 measured once (it is codec-independent); counters are asserted
 bit-exact against the host oracle once per codec family (and per codec
 family again through the fused path).
-
-Results are recorded in docs/BENCHMARKS.md.
 """
 from __future__ import annotations
 

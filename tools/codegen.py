@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Constant derivation & verification tool.
 
-TPU counterpart of the reference's offline codegen scripts
+Device counterpart of the reference's offline codegen scripts
 (paper/scripts/*.py, which print the pshufb/vpermw lookup tables pasted
-into the SIMD kernels). The TPU kernels have no lookup tables — their
+into the SIMD kernels). The device kernels have no lookup tables — their
 "constants" are the masked-swap transpose stages and the plane-space
 boolean transform — so this tool *derives* those from first principles
 and verifies them against brute force, printing them in copy-pastable

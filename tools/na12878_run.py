@@ -14,8 +14,7 @@ Usage: python tools/na12878_run.py [--scale 1] [--codec lz4] [--keep]
 
 `--container bam|sam|sam.gz` runs the same conformance check through
 the container-ingest path instead (BGZF/SAM walkers + read_flags_auto,
-the `samtools flagstat <file>` workload end-to-end) — the reproducible
-form of the round-3 BAM/SAM full-scale runs in docs/BENCHMARKS.md.
+the `samtools flagstat <file>` workload end-to-end).
 """
 from __future__ import annotations
 

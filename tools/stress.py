@@ -6,7 +6,7 @@ Mirrors the reference's fuzz-while-benchmarking discipline
 random sizes x seeds x value ranges, every registered implementation
 diffed against the branchy loop oracle on the defined counters.
 
-Usage: python tools/stress.py [--rounds 50] [--max-words 2000000] [--tpu]
+Usage: python tools/stress.py [--rounds 50] [--max-words 2000000] [--gpu]
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ def main() -> int:
     ap.add_argument("--max-words", type=int, default=2_000_000)
     ap.add_argument("--loop-oracle-max", type=int, default=30_000,
                     help="cap for the slow per-word loop oracle cross-check")
-    ap.add_argument("--tpu", action="store_true",
-                    help="exercise the pallas impls (default: CPU impls only)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="also run the GPU kernel tiers on the card (default: "
+                         "CPU tiers only)")
     ap.add_argument("--seed", type=int, default=None,
                     help="RNG seed (default: time-derived; always printed "
                          "so a MISMATCH can be reproduced)")
@@ -33,25 +34,21 @@ def main() -> int:
 
     import numpy as np
 
-    if not args.tpu:
+    if not args.gpu:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
     from libflagstats_tpu import flags as F
     from libflagstats_tpu.config import enable_compilation_cache
     from libflagstats_tpu.oracle import flagstat_loop, flagstat_numpy
-    from libflagstats_tpu.ops.dispatch import flagstats_u16
-
-    enable_compilation_cache()
-    import jax
-
-    impls = ["numpy", "xla"]
+    from libflagstats_tpu.ops.dispatch import FLAGSTAT_IMPLS, flagstats_u16
     from libflagstats_tpu.ops import native_host
 
-    if native_host.available():
-        impls.insert(1, "native")
-    if args.tpu and jax.default_backend() == "tpu":
-        impls += ["pallas", "pallas_report", "pallas_words", "pallas_pre"]
+    enable_compilation_cache()
+    # every registry string whose tier can run here
+    impls = [i for i in FLAGSTAT_IMPLS
+             if (i != "native" or native_host.available())
+             and (args.gpu or not i.startswith("pallas"))]
 
     seed = args.seed if args.seed is not None else int(time.time())
     print(f"[stress] seed={seed} (rerun with --seed {seed} to reproduce)",
